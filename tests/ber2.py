@@ -2,7 +2,7 @@
 conformance pin (VERDICT r3 weak item 5).
 
 Written from the X.690 clauses directly and deliberately structured
-differently from :mod:`ieache_tpu.codec.ber` (arithmetic byte loops
+differently from :mod:`ieache.codec.ber` (arithmetic byte loops
 instead of ``int.to_bytes``/strip, a single recursive schema walker
 instead of per-type functions) so that a transcription error in the
 primary codec cannot be silently mirrored here.  Supports exactly the
@@ -39,7 +39,7 @@ def _tlv(tag, content):
 
 def encode(sch, value):
     """Encode ``value`` (a dict) against a schema dict from
-    :mod:`ieache_tpu.codec.schema`."""
+    :mod:`ieache.codec.schema`."""
     parts = []
     for field in sch["fields"]:
         fname, ftype = field[0], field[1]

@@ -14,7 +14,7 @@ independently of the codec's own round-trip.
 
 import pytest
 
-from ieache_tpu.codec import ber, schema
+from ieache.codec import ber, schema
 
 
 def H(s):  # compact hex literal helper

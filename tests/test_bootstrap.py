@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ieache_tpu import params as P
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu.boot import gates
-from ieache_tpu.lwe import encrypt, keygen
-from ieache_tpu.utils import prng
+from ieache import params as P
+import ieache.boot.bootstrap as B
+from ieache.boot import gates
+from ieache.lwe import encrypt, keygen
+from ieache.utils import prng
 
 
 def _setup(p):
@@ -122,26 +122,3 @@ def test_bootstrap_noisy_params():
     out = gates.AND(ct, ct, dck)  # AND(x,x) == x
     got = encrypt.decrypt_bits(ks, np.asarray(out))
     np.testing.assert_array_equal(got, bits)
-
-
-def test_xla_fallback_guard_on_tpu(monkeypatch):
-    """IEACHE_PALLAS=0 on TPU is a known worker-killer (CLAUDE.md,
-    artifacts/PALLAS_PROBE_r02.json) — refused unless IEACHE_FORCE=1."""
-    import jax
-    import pytest
-
-    from ieache_tpu import params as P
-    from ieache_tpu.ops import blind_rotate as br
-
-    p = P.IEACHE_110  # pallas-eligible geometry (N % 128 == 0)
-    monkeypatch.setenv("IEACHE_PALLAS", "0")
-    monkeypatch.delenv("IEACHE_FORCE", raising=False)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(RuntimeError, match="IEACHE_FORCE"):
-        br._use_pallas(p)
-    monkeypatch.setenv("IEACHE_FORCE", "1")
-    assert br._use_pallas(p) is False
-    # CPU backend: fallback allowed silently (the crash is TPU-only)
-    monkeypatch.delenv("IEACHE_FORCE", raising=False)
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert br._use_pallas(p) is False

@@ -1,12 +1,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.boot import gates
-from ieache_tpu.circuits import arith, words
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.boot import gates
+from ieache.circuits import arith, words
+from ieache.lwe import keygen
+from ieache.utils import prng
 
 _KS = None
 _DCK = None
@@ -42,7 +42,7 @@ def test_ripple_add_16bit():
     carry_got = np.asarray(
         jnp.asarray(cout)[None] if cout.ndim == 1 else cout
     )
-    from ieache_tpu.lwe import encrypt
+    from ieache.lwe import encrypt
     carry_bits = encrypt.decrypt_bits(ks, np.asarray(cout))
     want_carry = [(int(x) + int(y)) >> 16 for x, y in zip(a, b)]
     assert carry_bits.tolist() == want_carry

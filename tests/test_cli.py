@@ -4,7 +4,7 @@ import sys
 
 import pytest
 
-from ieache_tpu.cli import convert, fixtures
+from ieache.cli import convert, fixtures
 
 
 def test_infix_to_postfix():
@@ -66,7 +66,7 @@ def test_cli_end_to_end(tmp_path):
 
     def run(*args):
         r = subprocess.run(
-            [sys.executable, "-m", "ieache_tpu.cli.main", *args],
+            [sys.executable, "-m", "ieache.cli.main", *args],
             cwd=d, env=env, capture_output=True, text=True, timeout=300,
         )
         assert r.returncode == 0, r.stdout + r.stderr
@@ -100,7 +100,7 @@ def test_cli_interactive_sim(tmp_path):
                PYTHONPATH=repo_root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run(
-        [sys.executable, "-m", "ieache_tpu.cli.main", "interactive",
+        [sys.executable, "-m", "ieache.cli.main", "interactive",
          "--params", "test_tiny", "--width", "8"],
         input="A\nA + B - C\n30\n12\n50\n",
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
@@ -120,7 +120,7 @@ def test_cli_interactive_rejects_mixed_ops(tmp_path):
                PYTHONPATH=repo_root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run(
-        [sys.executable, "-m", "ieache_tpu.cli.main", "interactive",
+        [sys.executable, "-m", "ieache.cli.main", "interactive",
          "--params", "test_tiny"],
         input="A + B * C\n", cwd=str(tmp_path), env=env,
         capture_output=True, text=True, timeout=120,

@@ -3,9 +3,9 @@ import pytest
 import os
 import tempfile
 
-from ieache_tpu import params as P
-from ieache_tpu.codec import ber, files, schema
-from ieache_tpu.lwe import keygen
+from ieache import params as P
+from ieache.codec import ber, files, schema
+from ieache.lwe import keygen
 
 
 def test_ber_integer_roundtrip():
@@ -96,14 +96,14 @@ def test_schema_matches_declaration_asn():
     """schema.py is verified against the shipped declaration.asn — the
     .asn module is the wire format's source of truth, the same
     artifact kind the reference deploys (`Output/declaration.asn`)."""
-    from ieache_tpu.codec import asn_schema, schema
+    from ieache.codec import asn_schema, schema
 
     parsed = asn_schema.load_module()
     assert parsed == schema.ALL
 
 
 def test_asn_emit_parse_roundtrip_per_node():
-    from ieache_tpu.codec import asn_schema
+    from ieache.codec import asn_schema
 
     full = asn_schema.load_module()
     for role, names in asn_schema.NODE_TYPES.items():
@@ -121,7 +121,7 @@ def test_asn1tools_crosscheck():
     """If asn1tools is available, the shipped module must compile and
     BER-encode DataFsize identically to our codec."""
     asn1tools = pytest.importorskip("asn1tools")
-    from ieache_tpu.codec import asn_schema, ber, schema
+    from ieache.codec import asn_schema, ber, schema
 
     spec = asn1tools.compile_files([asn_schema.module_path()], "ber")
     for value in [0, 1, 127, 128, 162304, 2**31 - 1]:

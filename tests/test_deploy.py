@@ -4,7 +4,7 @@ The reference deploys one script stack per host under systemd
 (`README.md:63-71`, `Client1/Services/MP.service:1-10`); the
 in-process sim (`mp/sim.py`) exercises the protocol but not process
 isolation.  Here keygen, two clients, and cloud run as separate
-`python -m ieache_tpu.cli.main serve` subprocesses on loopback (the
+`python -m ieache.cli.main serve` subprocesses on loopback (the
 deployment path itself), and the Output role drives an expression
 through them from the test process — key fan-out, SAE handshakes, BER
 framing, ciphertext pulls, evaluation, and answer decryption all
@@ -19,7 +19,7 @@ import time
 
 import pytest
 
-from ieache_tpu import params as P
+from ieache import params as P
 
 
 def _free_ports(n):
@@ -36,7 +36,7 @@ def _free_ports(n):
 
 def _spawn(args, cwd, env):
     return subprocess.Popen(
-        [sys.executable, "-m", "ieache_tpu.cli.main", "serve"] + args,
+        [sys.executable, "-m", "ieache.cli.main", "serve"] + args,
         cwd=cwd, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
@@ -80,7 +80,7 @@ def test_multiprocess_expression_flow(tmp_path):
         ))
 
         # Output role in this process: keys, 'finished', job, answer
-        from ieache_tpu.mp import nodes
+        from ieache.mp import nodes
 
         out = nodes.OutputNode()
         out.start_indicator_server("127.0.0.1", po)
@@ -132,7 +132,7 @@ def test_serve_keygen_prints_hostup_and_finished(tmp_path):
         tmp_path, env,
     )
     try:
-        from ieache_tpu.mp import nodes
+        from ieache.mp import nodes
 
         out = nodes.OutputNode()
         out.start_indicator_server("127.0.0.1", po)

@@ -2,12 +2,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.dist import mesh as dmesh
-from ieache_tpu.dist import shard as dshard
-from ieache_tpu.lwe import encrypt, keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.dist import mesh as dmesh
+from ieache.dist import shard as dshard
+from ieache.lwe import encrypt, keygen
+from ieache.utils import prng
 
 
 def test_mesh_shapes():
@@ -45,8 +45,8 @@ def test_dp_sharded_evaluator_bit_exact():
     """Full fused expression evaluation with the batch dp-sharded over
     8 devices agrees bit-for-bit with the single-device run — the
     placement layer (dist/batch.py) changes no compute path."""
-    from ieache_tpu.circuits import evaluator as ev
-    from ieache_tpu.dist import batch as dbatch
+    from ieache.circuits import evaluator as ev
+    from ieache.dist import batch as dbatch
 
     p = P.TEST_TINY
     pair = keygen.generate_gate_keypair(p)
@@ -80,8 +80,8 @@ def test_dp_sharded_evaluator_bit_exact():
 
 
 def test_shard_operand_rejects_uneven_batch():
-    from ieache_tpu.circuits import evaluator as ev
-    from ieache_tpu.dist import batch as dbatch
+    from ieache.circuits import evaluator as ev
+    from ieache.dist import batch as dbatch
 
     p = P.TEST_TINY
     pair = keygen.generate_gate_keypair(p)
@@ -189,8 +189,8 @@ def test_step_gmatrix_local_blocks_match_full():
     the full Toeplitz operand, at every shard offset."""
     import jax.numpy as jnp
 
-    from ieache_tpu import params as P
-    from ieache_tpu.ops.blind_rotate import (
+    from ieache import params as P
+    from ieache.ops.blind_rotate import (
         make_step_gmatrix,
         make_step_gmatrix_local,
     )

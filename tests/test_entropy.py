@@ -11,10 +11,10 @@ These tests pin the default-entropy / opt-in-determinism contract of
 
 import numpy as np
 
-from ieache_tpu import params as P
-from ieache_tpu.lwe import keygen
-from ieache_tpu.mp import nodes
-from ieache_tpu.utils import prng
+from ieache import params as P
+from ieache.lwe import keygen
+from ieache.mp import nodes
+from ieache.utils import prng
 
 _CACHE = {}
 
@@ -60,7 +60,7 @@ def test_node_encrypt_operand_fresh_avectors(monkeypatch):
     assert not np.array_equal(np.asarray(op1.value)[..., :-1],
                               np.asarray(op2.value)[..., :-1])
     # both still decrypt to the same plaintext bits
-    from ieache_tpu.lwe import encrypt
+    from ieache.lwe import encrypt
     pair = _keypair()
     b1 = np.asarray(encrypt.decrypt_bits(pair.main, np.asarray(op1.value)))
     b2 = np.asarray(encrypt.decrypt_bits(pair.main, np.asarray(op2.value)))

@@ -2,9 +2,9 @@
 
 import pytest
 
-from ieache_tpu import params as P
-from ieache_tpu.mp import sim
-from ieache_tpu.utils.trace import Timings, bootstraps_per_sec
+from ieache import params as P
+from ieache.mp import sim
+from ieache.utils.trace import Timings, bootstraps_per_sec
 
 
 def test_mul_width_guard_over_sockets():

@@ -1,10 +1,10 @@
 import numpy as np
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.circuits import evaluator as ev
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.circuits import evaluator as ev
+from ieache.lwe import keygen
+from ieache.utils import prng
 
 _CACHE = {}
 
@@ -169,8 +169,8 @@ def test_invalid_negativity_code_rejected():
     b = ev.encrypt_operand(pair.main, pair.nbit, [5], 8,
                            prng.derive(s, 1))
     # corrupt A's negativity word to an undefined code (3)
-    from ieache_tpu.circuits import words as W
-    from ieache_tpu.lwe import encrypt as enc
+    from ieache.circuits import words as W
+    from ieache.lwe import encrypt as enc
     import jax.numpy as jnp
 
     bad = jnp.asarray(enc.encrypt_bits(
@@ -320,7 +320,7 @@ def test_mul_mul_chain_asymmetric_widths():
     """A*B*C via compute_steps: the second multiply is (2W)x(W) — the
     r4 asymmetric windowed-CSA path (rounds over the narrower operand)
     must decrypt exactly and account fewer gates than symmetric."""
-    from ieache_tpu.circuits import fused as fz
+    from ieache.circuits import fused as fz
 
     pair, cloud = _setup()
     s = prng.key_from_seed_words([0x77])

@@ -1,12 +1,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.boot import gates
-from ieache_tpu.circuits import fused, words
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.boot import gates
+from ieache.circuits import fused, words
+from ieache.lwe import keygen
+from ieache.utils import prng
 
 _C = {}
 
@@ -55,7 +55,7 @@ def test_adder_modes_exhaustive():
             s, cout = fused.ripple_add(ca, cb, cc, dck, mode=mode)
             assert words.decrypt_word(ks, s) == want, mode
             # carry-out of 0b1111 + 0b0001 (+cin) must be 1
-            from ieache_tpu.lwe import encrypt
+            from ieache.lwe import encrypt
 
             co = encrypt.decrypt_bits(ks, np.asarray(cout))
             want_co = [(x + y + cin) >> 4 for x, y in zip(a, b)]

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from ieache_tpu import params as P
-from ieache_tpu.lwe import keygen, keygen_device
+from ieache import params as P
+from ieache.lwe import keygen, keygen_device
 
 
 @pytest.mark.parametrize("pname", ["TEST_TINY", "TEST_SMALL_NOISY"])

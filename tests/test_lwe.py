@@ -1,8 +1,8 @@
 import numpy as np
 
-from ieache_tpu import params as P
-from ieache_tpu.lwe import encrypt, keygen
-from ieache_tpu.utils import prng
+from ieache import params as P
+from ieache.lwe import encrypt, keygen
+from ieache.utils import prng
 
 
 def test_keygen_shapes_and_determinism():
@@ -61,7 +61,7 @@ def test_encrypt_decrypt_roundtrip_noisy():
 
 def test_bk_rows_encrypt_gadget_messages():
     """Noiseless TGSW rows must have phase == ±s_i * h_j * K (exact)."""
-    from ieache_tpu.core import poly
+    from ieache.core import poly
 
     p = P.TEST_TINY
     ks = keygen.generate_secret_keyset(p)

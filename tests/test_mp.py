@@ -1,7 +1,7 @@
 import pytest
 
-from ieache_tpu import params as P
-from ieache_tpu.mp import dragonfly, keywrap, scheduler
+from ieache import params as P
+from ieache.mp import dragonfly, keywrap, scheduler
 
 
 def test_dragonfly_handshake_derives_same_pmk():
@@ -59,7 +59,7 @@ def test_scheduler_caps_and_parse():
 
 
 def test_full_flow_two_operand():
-    from ieache_tpu.mp import sim
+    from ieache.mp import sim
 
     res = sim.run_full_flow(
         "AB+",
@@ -75,7 +75,7 @@ def test_full_flow_two_operand():
 
 def test_full_flow_three_operand_chain():
     """BASELINE config 4: full Client1-3 -> Cloud -> Output flow."""
-    from ieache_tpu.mp import sim
+    from ieache.mp import sim
 
     res = sim.run_full_flow(
         "AB+C-",
@@ -93,7 +93,7 @@ def test_full_flow_three_operand_unchained():
     """IEACHE_CHAIN=0 forces the reference's per-op walk."""
     import os
 
-    from ieache_tpu.mp import sim
+    from ieache.mp import sim
 
     os.environ["IEACHE_CHAIN"] = "0"
     try:
@@ -124,7 +124,7 @@ def test_plan_postfix_shapes():
 
 def test_full_flow_mul_first_tree():
     """A - B * C through the six-role flow (postfix ABC*-)."""
-    from ieache_tpu.mp import sim
+    from ieache.mp import sim
 
     res = sim.run_full_flow(
         "ABC*-",
@@ -142,8 +142,8 @@ def test_key_transfer_digest_mismatch_detected():
     import socket
     import threading
 
-    from ieache_tpu.mp import keywrap as kw, nodes, transport
-    from ieache_tpu.codec import schema
+    from ieache.mp import keywrap as kw, nodes, transport
+    from ieache.codec import schema
 
     a, b = socket.socketpair()
     pmk = bytes(range(32))
@@ -182,7 +182,7 @@ def test_key_transfer_digest_ok_roundtrip():
     import socket
     import threading
 
-    from ieache_tpu.mp import nodes
+    from ieache.mp import nodes
 
     a, b = socket.socketpair()
     pmk = bytes(range(32))
@@ -201,7 +201,7 @@ def test_key_transfer_digest_ok_roundtrip():
 
 def test_submit_job_validates_liveness_and_ip():
     """Per-operand IPv4 + liveness gate (`output_dynamic.py:1096-1113`)."""
-    from ieache_tpu.mp import nodes
+    from ieache.mp import nodes
 
     out = nodes.OutputNode("pw")
     with pytest.raises(ValueError, match="Invalid IP"):
@@ -217,7 +217,7 @@ def test_submit_job_validates_liveness_and_ip():
 def test_keygen_discover_tcp_probe():
     import socket
 
-    from ieache_tpu.mp import nodes
+    from ieache.mp import nodes
 
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
@@ -234,7 +234,7 @@ def test_supervisor_bounded_restarts():
     bounded restarts returns the worker's last exit code."""
     import sys
 
-    from ieache_tpu.mp import supervisor
+    from ieache.mp import supervisor
 
     code = supervisor.supervise(
         [sys.executable, "-c", "import sys; sys.exit(3)"],
@@ -244,7 +244,7 @@ def test_supervisor_bounded_restarts():
 
 
 def test_node_stop_before_start_is_safe():
-    from ieache_tpu.mp import nodes
+    from ieache.mp import nodes
 
     nodes.OutputNode("pw").stop()
     nodes.CloudNode("pw").stop()
@@ -252,8 +252,8 @@ def test_node_stop_before_start_is_safe():
 
 
 def _mini_keygen(clients=None):
-    from ieache_tpu.lwe import keygen as kg
-    from ieache_tpu.mp import nodes
+    from ieache.lwe import keygen as kg
+    from ieache.mp import nodes
 
     if "kgpair" not in globals():
         globals()["kgpair"] = kg.generate_gate_keypair(P.TEST_TINY)
@@ -265,7 +265,7 @@ def _mini_keygen(clients=None):
 
 
 def _pull_keys(addr, role, password="pw"):
-    from ieache_tpu.mp import nodes, transport
+    from ieache.mp import nodes, transport
 
     s = transport.connect_retry(*addr, retries=20, delay=0.05)
     try:
@@ -291,7 +291,7 @@ def test_keygen_admission_unknown_role_refused():
 def test_keygen_admission_cloud_never_gets_secret():
     """The cloud role receives the evaluation keyset only — no lwe_s
     (`dragonfly_public_keygen.py:570-574` trust model)."""
-    from ieache_tpu.codec import files
+    from ieache.codec import files
 
     node, addr = _mini_keygen(clients=[])
     _pull_keys(addr, "output")
@@ -341,7 +341,7 @@ def test_native_ec_matches_python():
     boundaries, p-1) and random scalars on real SAE-derived points."""
     import random
 
-    nlib = pytest.importorskip("ieache_tpu.native.lib")
+    nlib = pytest.importorskip("ieache.native.lib")
     try:
         nlib.get_lib()
     except Exception:
@@ -384,7 +384,7 @@ def test_keypair_transfer_at_reference_chunk_size():
     import socket
     import threading
 
-    from ieache_tpu.mp import nodes
+    from ieache.mp import nodes
 
     pmk = b"\x07" * 32
     blob_k = bytes(range(256)) * 300   # 76.8 kB -> ~10 chunks

@@ -10,11 +10,11 @@ test (noise must not accumulate across bootstraps).
 import numpy as np
 import jax.numpy as jnp
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.boot import gates
-from ieache_tpu.lwe import encrypt, keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.boot import gates
+from ieache.lwe import encrypt, keygen
+from ieache.utils import prng
 
 MU = 1 << 29
 

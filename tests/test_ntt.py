@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ieache_tpu.core import ntt, poly
+from ieache.core import ntt, poly
 
 
 def test_primes_support_2048th_roots():
@@ -62,14 +62,14 @@ def test_negacyclic_mul_edge_values():
 
 
 def test_blind_rotate_ntt_mode_bit_exact():
-    """IEACHE_PALLAS_STEP=ntt runs the whole blind rotation through
+    """IEACHE_STEP=ntt runs the whole blind rotation through
     the CRT-NTT external product, bit-identical to the default path."""
     import os
 
     import jax
 
-    from ieache_tpu import params as P
-    from ieache_tpu.ops import blind_rotate as br
+    from ieache import params as P
+    from ieache.ops import blind_rotate as br
 
     p = P.TEST_TINY
     rng = np.random.RandomState(5)
@@ -82,12 +82,12 @@ def test_blind_rotate_ntt_mode_bit_exact():
     want = np.asarray(br.blind_rotate(
         jnp.asarray(acc0), jnp.asarray(bara), jnp.asarray(bk), p))
 
-    os.environ["IEACHE_PALLAS_STEP"] = "ntt"
+    os.environ["IEACHE_STEP"] = "ntt"
     jax.clear_caches()
     try:
         got = np.asarray(br.blind_rotate(
             jnp.asarray(acc0), jnp.asarray(bara), jnp.asarray(bk), p))
     finally:
-        del os.environ["IEACHE_PALLAS_STEP"]
+        del os.environ["IEACHE_STEP"]
         jax.clear_caches()
     np.testing.assert_array_equal(got, want)

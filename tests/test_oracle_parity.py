@@ -1,10 +1,10 @@
 """Bit-exactness gate: JAX core vs the native C++ oracle.
 
 The BASELINE requires "bit-exact keygen/encrypt/gate-eval/decrypt vs
-reference TFHE test vectors"; the oracle (ieache_tpu/native) is the
+reference TFHE test vectors"; the oracle (ieache/native) is the
 framework's normative reference implementation (plain C++ modular
 arithmetic + schoolbook polynomial products).  Every array compared
-here must match exactly — any mismatch means either the MXU matmul
+here must match exactly — any mismatch means either the int8 matmul
 path or the oracle broke the spec.
 """
 
@@ -12,11 +12,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.lwe import encrypt, keygen
-from ieache_tpu.native import lib as native
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.lwe import encrypt, keygen
+from ieache.native import lib as native
+from ieache.utils import prng
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_encrypt_decrypt_parity(oracle):
 
 
 def test_bootstrap_parity(oracle):
-    """THE gate: full gate bootstrap, JAX/MXU path vs C++ oracle."""
+    """THE gate: full gate bootstrap, JAX path vs C++ oracle."""
     p = P.TEST_TINY
     ks = keygen.generate_secret_keyset(p)
     dck = B.pack_cloud_key(ks.cloud)

@@ -8,12 +8,12 @@ bit-identical ciphertexts — not just equal decryptions.
 import numpy as np
 import jax.numpy as jnp
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.circuits import words
-from ieache_tpu.dist import pipeline as pp
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.circuits import words
+from ieache.dist import pipeline as pp
+from ieache.lwe import keygen
+from ieache.utils import prng
 
 _CACHE = {}
 

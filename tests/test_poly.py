@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ieache_tpu.core import poly
-from ieache_tpu.utils import prng
+from ieache.core import poly
+from ieache.utils import prng
 
 
 def _rand_torus(key, shape):

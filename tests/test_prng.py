@@ -1,6 +1,6 @@
 import numpy as np
 
-from ieache_tpu.utils import prng
+from ieache.utils import prng
 
 
 def test_threefry_known_vectors():

@@ -2,11 +2,11 @@
 ``declaration.asn`` files (VERDICT r3 missing item 2).
 
 Parses all six ``/root/reference/*/declaration.asn`` with the repo's
-own :func:`ieache_tpu.codec.asn_schema.parse_module` and asserts
+own :func:`ieache.codec.asn_schema.parse_module` and asserts
 
 * every node's parsed type set equals ``NODE_TYPES[role]``,
 * field names / types / OPTIONAL flags of every declared type match
-  the :mod:`ieache_tpu.codec.schema` transcription exactly,
+  the :mod:`ieache.codec.schema` transcription exactly,
 * the Keygen copy's ``DataIntiate`` misspelling is preserved.
 
 The test fails if either the parser or the hand transcription drifts
@@ -18,7 +18,7 @@ import os
 
 import pytest
 
-from ieache_tpu.codec import asn_schema, schema
+from ieache.codec import asn_schema, schema
 
 REF = "/root/reference"
 

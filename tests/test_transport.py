@@ -12,8 +12,8 @@ import threading
 
 import pytest
 
-from ieache_tpu.codec import ber, schema
-from ieache_tpu.mp import transport
+from ieache.codec import ber, schema
+from ieache.mp import transport
 
 
 def _pair():

@@ -11,12 +11,12 @@ recorded by tools/width_bench.py.
 
 import pytest
 
-import ieache_tpu.boot.bootstrap as B
-from ieache_tpu import params as P
-from ieache_tpu.circuits import evaluator as ev
-from ieache_tpu.circuits import fused
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+import ieache.boot.bootstrap as B
+from ieache import params as P
+from ieache.circuits import evaluator as ev
+from ieache.circuits import fused
+from ieache.lwe import keygen
+from ieache.utils import prng
 
 _CACHE = {}
 
@@ -104,7 +104,7 @@ def test_fused_kogge_stone_evaluator():
     """The parallel-prefix adder as ONE dispatch through the evaluator
     (round-1 VERDICT: the unfused variant was dispatch-per-level)."""
     pair, _ = _setup()
-    import ieache_tpu.boot.bootstrap as B2
+    import ieache.boot.bootstrap as B2
 
     cloud = ev.CloudEvaluator(
         B2.pack_cloud_key(pair.main.cloud), pair.nbit,
@@ -123,7 +123,7 @@ def test_fused_kogge_stone_evaluator():
 
 def test_csa_equals_shift_multiplier():
     """Both multiplier circuits compute the same product."""
-    from ieache_tpu.circuits import words
+    from ieache.circuits import words
 
     pair, cloud = _setup()
     dck = cloud.dck

@@ -2,8 +2,9 @@
 """Full-system lambda=110 end-to-end benchmark (VERDICT r4 #2).
 
 Six roles as REAL OS processes over loopback sockets at full
-parameters, with the Cloud evaluator on the default backend (the real
-TPU under the round driver; E2E_FORCE_CPU=1 for CI smoke), driving the
+parameters, with the Cloud evaluator on the GPU (E2E_FORCE_CPU=1 for a
+CPU smoke run) and every other role pinned to the CPU, so that one
+process holds the card; driving the
 reference's complete flow:
 
   keygen (keygen-once mode, .keycache) -> SAE key fan-out to Output +
@@ -27,8 +28,7 @@ Every phase maps row-for-row onto BASELINE.md (`AC058.pdf` p.4):
 Each expression is submitted twice: the first job carries the one-time
 XLA compile (the reference has no analog — its binaries are prebuilt),
 the second is the steady-state number used for the Fig.7 speedup
-column (matching the FIG7_r* artifacts' seconds_warm convention; cold
-totals are reported alongside).
+column (cold totals are reported alongside).
 
 Env: E2E_PARAMS (ieache_110_l2), E2E_BATCH (1 — one expression lane,
 the reference's geometry; raise for batched lanes), E2E_WIDTH (32),
@@ -82,7 +82,7 @@ def main():
     force_cpu = os.environ.get("E2E_FORCE_CPU") == "1"
 
     # the Output role runs in this process on CPU (decrypt is host
-    # work); the Cloud subprocess keeps the default (TPU) backend
+    # work); only the Cloud subprocess opens the GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -113,27 +113,27 @@ def main():
         PYTHONUNBUFFERED="1",
     )
     cpu_env = dict(base_env, IEACHE_PLATFORM="cpu")
-    cloud_env = dict(base_env)
-    if force_cpu:
-        cloud_env["IEACHE_PLATFORM"] = "cpu"
+    cloud_env = dict(base_env,
+                     IEACHE_PLATFORM="cpu" if force_cpu else "gpu")
 
     tag = os.environ.get("E2E_TAG", str(os.getpid()))
 
     def spawn(args, env, logname):
-        logf = open(os.path.join(REPO, "artifacts",
-                                 f"e2e_{tag}_{logname}.log"), "w")
+        logf = open(os.path.join(logdir, f"e2e_{tag}_{logname}.log"), "w")
         return subprocess.Popen(
-            [sys.executable, "-m", "ieache_tpu.cli.main", "serve"]
+            [sys.executable, "-m", "ieache.cli.main", "serve"]
             + args, cwd=REPO, env=env, stdout=logf,
             stderr=subprocess.STDOUT, text=True,
         ), logf
 
-    os.makedirs(os.path.join(REPO, "artifacts"), exist_ok=True)
+    logdir = os.environ.get("E2E_LOGDIR",
+                            os.path.join(REPO, "chiprun_out", "e2e"))
+    os.makedirs(logdir, exist_ok=True)
     procs, logs = [], []
     result = {"probe": "e2e_lambda110", "params": pname,
               "batch": batch, "width": width,
               "adder": os.environ.get("E2E_ADDER", "ripple"),
-              "cloud_backend": "cpu" if force_cpu else "tpu",
+              "cloud_backend": cloud_env["IEACHE_PLATFORM"],
               "mode": "six OS processes over loopback sockets",
               "values": vals, "reference": REF}
     t_all0 = time.time()
@@ -169,8 +169,8 @@ def main():
         procs.append(cloud_pr)
         logs.append(lf)
 
-        from ieache_tpu.mp import nodes
-        from ieache_tpu.mp.config import NetworkConfig
+        from ieache.mp import nodes
+        from ieache.mp.config import NetworkConfig
 
         # generous connect window: the lambda=110 keygen process needs
         # jax import + 66 MB keyset load + blob build (~15-30 s)
@@ -231,8 +231,7 @@ def main():
         _say("collecting cloud spans ...")
         time.sleep(2.0)  # let the span printer flush
         cloud_spans = []
-        with open(os.path.join(REPO, "artifacts",
-                               f"e2e_{tag}_cloud.log")) as f:
+        with open(os.path.join(logdir, f"e2e_{tag}_cloud.log")) as f:
             for line in f:
                 if line.startswith("SPAN "):
                     cloud_spans.append(json.loads(line[5:]))

@@ -29,13 +29,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from ieache_tpu import params as P
-    import ieache_tpu.boot.bootstrap as boot
-    from ieache_tpu.boot import gates
-    from ieache_tpu.codec import files
-    from ieache_tpu.lwe import encrypt, keygen
-    from ieache_tpu.utils import prng
+    from ieache import params as P
+    import ieache.boot.bootstrap as boot
+    from ieache.boot import gates
+    from ieache.codec import files
+    from ieache.lwe import encrypt, keygen
+    from ieache.utils import prng
+    from ieache.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     pname = os.environ.get("MP_PARAMS", "ieache_110_l2")
     p = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST,
          "test_small_noisy": P.TEST_SMALL_NOISY}[pname]

@@ -2,7 +2,7 @@
 """Multi-host worker: dp-sharded gate evaluation across OS processes.
 
 One process per "host", joined through ``jax.distributed`` (the
-TPU-native replacement for the reference's six-host TCP topology,
+Replacement for the reference's six-host TCP topology,
 SURVEY §5.8).  Each host encrypts its local slice of the gate batch,
 the slices form ONE global dp-sharded array over all hosts' devices,
 the batched AND gate runs SPMD (cross-host collectives over
@@ -30,7 +30,7 @@ def main():
         + f" --xla_force_host_platform_device_count={ndev}"
     ).strip()
 
-    from ieache_tpu.dist import multihost
+    from ieache.dist import multihost
 
     multihost.initialize(f"127.0.0.1:{port}", nproc, pid,
                          platform="cpu")
@@ -39,11 +39,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    import ieache_tpu.boot.bootstrap as boot
-    from ieache_tpu.boot import gates
-    from ieache_tpu import params as P
-    from ieache_tpu.lwe import encrypt, keygen
-    from ieache_tpu.utils import prng
+    import ieache.boot.bootstrap as boot
+    from ieache.boot import gates
+    from ieache import params as P
+    from ieache.lwe import encrypt, keygen
+    from ieache.utils import prng
 
     batch = int(os.environ.get("MH_BATCH", 16))
     assert batch % (nproc * ndev) == 0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time the full bootstrap pipeline at lambda=110 scale on TPU."""
+"""Time the full bootstrap pipeline at lambda=110 scale on the device."""
 
 import os
 import sys
@@ -11,10 +11,13 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ieache_tpu import params as P
-import ieache_tpu.boot.bootstrap as boot
-from ieache_tpu.boot import gates
-from ieache_tpu.lwe.types import CloudKeySet
+from ieache import params as P
+import ieache.boot.bootstrap as boot
+from ieache.boot import gates
+from ieache.lwe.types import CloudKeySet
+from ieache.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 p = P.IEACHE_110
 B = int(os.environ.get("B", 512))

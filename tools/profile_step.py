@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile the blind-rotation step components at full scale on TPU."""
+"""Profile the blind-rotation step components at full scale on the device."""
 
 import os
 import sys
@@ -11,12 +11,16 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ieache_tpu import params as P
-from ieache_tpu.core.poly import (
-    TORUS_LIMBS, _toeplitz_from_extended, negacyclic_extend, split_i8_limbs,
+from ieache import params as P
+from ieache.core.poly import (
+    TORUS_LIMBS, _dot_i8, _toeplitz_from_extended, negacyclic_extend,
+    split_i8_limbs,
 )
-from ieache_tpu.ops import blind_rotate as br
-from ieache_tpu.ops.decompose import gadget_decompose
+from ieache.ops import blind_rotate as br
+from ieache.ops.decompose import gadget_decompose
+from ieache.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 p = P.IEACHE_110
 B = int(os.environ.get("B", 512))
@@ -37,12 +41,12 @@ g = jnp.asarray(
 
 def timeit(name, fn, *args, iters=3):
     out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0])  # force
-    t0 = time.time()
+    jax.block_until_ready(out)
+    t0 = time.perf_counter()
     for _ in range(iters):
         out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0])  # force
-    dt = (time.time() - t0) / iters
+    jax.block_until_ready(out)
+    dt = (time.perf_counter() - t0) / iters
     print(f"{name:30s} {dt*1e3:10.2f} ms")
     return dt
 
@@ -61,7 +65,7 @@ def build_g(bk_i):
 def matmuls(d8, g):
     out = jnp.zeros((B, kp1 * N), jnp.int32)
     for v in range(TORUS_LIMBS):
-        out = out + (br._dot_i8(d8, g[v]) << (8 * v))
+        out = out + (_dot_i8(d8, g[v]) << (8 * v))
     return jnp.sum(out)
 
 

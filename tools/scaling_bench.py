@@ -1,14 +1,13 @@
 #!/usr/bin/env python
 """Scaling-efficiency benchmark: bootstraps/s at dp = 1, 2, ..., N.
 
-BASELINE target: >= 80% scaling efficiency at v5e-16.  The per-gate
-work is embarrassingly batch-parallel (each gate bootstrap is
+The per-gate work is embarrassingly batch-parallel (each gate bootstrap is
 independent, like the reference's multi-client fan-out), so the only
 scaling losses are dispatch overhead and key replication.
 
-Runs on whatever devices JAX exposes: all chips of a real slice, or a
+Runs on whatever devices JAX exposes: all cards of a GPU host, or a
 virtual CPU mesh (SB_FORCE_CPU=1 sets 8 virtual devices — numbers are
-then illustrative only; CPU "chips" share the same sockets).
+then not device numbers; the virtual devices share the same cores).
 
 Prints one JSON line per dp size plus a summary line with the
 efficiency at max dp.  Env: SB_PARAMS (test_tiny|test_small_noisy|
@@ -38,15 +37,18 @@ def main():
     else:
         import jax
 
+    from ieache.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
-    from ieache_tpu import params as P
-    from ieache_tpu.boot import gates
-    import ieache_tpu.boot.bootstrap as boot
-    from ieache_tpu.dist import batch as dbatch, mesh as dmesh
-    from ieache_tpu.dist import shard as dshard
-    from ieache_tpu.lwe import encrypt, keygen
-    from ieache_tpu.utils import prng
-    from ieache_tpu.codec import files
+    from ieache import params as P
+    from ieache.boot import gates
+    import ieache.boot.bootstrap as boot
+    from ieache.dist import batch as dbatch, mesh as dmesh
+    from ieache.dist import shard as dshard
+    from ieache.lwe import encrypt, keygen
+    from ieache.utils import prng
+    from ieache.codec import files
 
     pname = os.environ.get("SB_PARAMS", "test_small_noisy")
     p = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST,
@@ -119,12 +121,13 @@ def main():
                 return gates.NAND(cx, cy, dck_r)
 
         out = run()  # compile + warmup
-        np.asarray(out)
-        t0 = time.time()
+        jax.block_until_ready(out)
+        t0 = time.perf_counter()
         for _ in range(iters):
             out = run()
+        jax.block_until_ready(out)
+        dt = time.perf_counter() - t0
         out_h = np.asarray(out)
-        dt = time.time() - t0
 
         errors = int(
             (encrypt.decrypt_bits(ks, out_h) != (1 - (xb & yb))).sum()
@@ -146,10 +149,9 @@ def main():
         "value": round(eff, 4),
         "unit": "fraction",
         "dp_max": top,
-        "vs_baseline": round(eff / 0.8, 3),
         "params": p.name,
         "platform": jax.devices()[0].platform,
-        "note": "target >= 0.8 at v5e-16 (BASELINE.md)",
+        "device_kind": jax.devices()[0].device_kind,
     }))
 
 
